@@ -3,7 +3,7 @@
 
 Demonstrates what a user of the reference library would do with
 ``interface.hpp`` — embed the SpMV kernel inside their own iterative solver —
-done the TPU way: the operator's raw closure composes into one jitted CG
+done the JAX way: the operator's raw closure composes into one jitted CG
 step, so the whole iteration (SpMV + dots + axpys) stays on device.
 
 Usage: python examples/cg_solver.py [matrix.mtx | 'Laplace3D,48'] [--tol 1e-6]
@@ -84,7 +84,7 @@ def main() -> int:
     from uspmv_tpu.cli import load_matrix
 
     mtx = load_matrix(args.matrix)  # SPD needed for CG (Laplacians are)
-    h = ui.prepare(mtx, C=1024, sigma=1, value_type="sp")
+    h = ui.prepare(mtx, C=32, sigma=1, value_type="sp")
     rng = np.random.default_rng(0)
     x_true = rng.standard_normal(mtx.n_rows)
     b = mtx.to_scipy().tocsr() @ x_true

@@ -1,4 +1,4 @@
-// uspmv_host — native host-side preprocessing for the TPU SpMV framework.
+// uspmv_host — native host-side preprocessing for the SpMV framework.
 //
 // Native (C++17) implementations of the ingest/convert hot path, mirroring
 // the reference's native components (mmio.cpp + read_mtx at
@@ -125,8 +125,8 @@ USPMV_API const char* uspmv_last_error() { return g_error.c_str(); }
 
 // Bumped whenever an exported signature changes; the ctypes loader
 // refuses to bind a library whose version differs (a stale .so with the
-// old float* pack_fetch would corrupt memory silently).
-USPMV_API int64_t uspmv_abi_version() { return 7; }
+// different signature would corrupt memory silently).
+USPMV_API int64_t uspmv_abi_version() { return 8; }
 
 // Reads a MatrixMarket coordinate file. Returns a handle (or null on error;
 // see uspmv_last_error). Mirrors uspmv_tpu/io/mmio.py:read_mtx.
@@ -400,11 +400,9 @@ USPMV_API void uspmv_scs_fetch(const ScsHandle* s, int32_t* chunk_ptrs,
   memcpy(row_counts_new, s->row_counts_new.data(), s->row_counts_new.size() * 4);
 }
 
-// Dtype-aware value fetch: the padded value array can be hundreds of
-// times nnz (every chunk pads to its longest row), and fetching it as
-// f64 then casting in numpy cost ~40% of a large tstream build (3.2 GB
-// f64 buffer + astype copy at RandomImbalanced-500k). Casting during
-// the copy keeps one pass and no intermediate.
+// Dtype-aware value fetch: the padded value array can be many times nnz
+// (every chunk pads to its longest row); casting during the copy keeps one
+// pass and no intermediate f64 buffer.
 USPMV_API void uspmv_scs_fetch_vals_f32(const ScsHandle* s, float* values) {
   const double* src = s->values.data();
   const int64_t n = (int64_t)s->values.size();
@@ -412,857 +410,3 @@ USPMV_API void uspmv_scs_fetch_vals_f32(const ScsHandle* s, float* values) {
 }
 
 USPMV_API void uspmv_scs_free(ScsHandle* s) { delete s; }
-
-// ---------------------------------------------------------------------------
-// Lane-tile packer (mirrors uspmv_tpu/ops/packer.py:pack_lane_tiles)
-// ---------------------------------------------------------------------------
-//
-// Packs a C=1024 SCS struct into (8,128) j-plane gather tiles for the Pallas
-// TPU kernel: per-row column sort, monotone plane windows, per-row two-pointer
-// bin assignment, two-step-gather sublane-consistency conflicts, greedy spill
-// tiles, empty-bin drop, round-robin chunk interleave within output groups,
-// and group padding to tiles_per_step. Semantics are bit-identical to the
-// Python packer (the parity oracle in tests/test_native.py).
-
-namespace {
-
-constexpr int64_t kTileJ = 8;
-constexpr int64_t kLanes = 128;
-constexpr int64_t kChunkRows = kTileJ * kLanes;  // 1024
-constexpr int64_t kChunksPerGroup = 64;
-constexpr int64_t kMaxTps = 128;
-constexpr int64_t kMinSteps = 16;
-
-struct Tile {
-  int32_t chunk = 0;
-  int32_t w = 0;
-  std::vector<double> vals;     // 8*128
-  std::vector<int32_t> lane;    // 8*128 (indexed by slot j)
-  std::vector<int32_t> sub;     // 8*128 (indexed by source lane l)
-  std::vector<uint8_t> sub_set; // 8*128
-  std::vector<uint8_t> occ;     // 8*128 (spill tiles only)
-  bool used = false;
-  Tile() : vals(kChunkRows, 0.0), lane(kChunkRows, 0), sub(kChunkRows, 0),
-           sub_set(kChunkRows, 0), occ(kChunkRows, 0) {}
-};
-
-struct PackHandle {
-  int64_t nt = 0;
-  int64_t tps = 0;
-  int64_t cpg = kChunksPerGroup;
-  int64_t n_spilled = 0;
-  std::vector<double> vals;      // [nt, 8, 128]
-  std::vector<int32_t> src_tab;  // [nt, 8, 128]
-  std::vector<int32_t> w_row;    // [nt]
-  std::vector<int32_t> tile_chunk;  // [nt]
-};
-
-int64_t auto_tps(int64_t n_tiles) {
-  int64_t tps = 8;
-  while (tps < kMaxTps && n_tiles / (tps * 2) >= kMinSteps) tps *= 2;
-  return tps;
-}
-
-}  // namespace
-
-USPMV_API PackHandle* uspmv_pack_lane_tiles(
-    int64_t n_chunks, int64_t n_rows_padded, const int32_t* chunk_ptrs,
-    const int32_t* chunk_lengths, const int32_t* col_idxs,
-    const double* values, const int32_t* row_counts_new, int64_t x_len,
-    int64_t tiles_per_step, int64_t chunks_per_group, int64_t window_rows) {
-  (void)n_rows_padded;  // row space is implied by n_chunks * 1024
-  const int64_t cpg = chunks_per_group > 0 ? chunks_per_group : kChunksPerGroup;
-  const int64_t wrows = window_rows > 0 ? window_rows : kTileJ;
-  const int64_t kWindow = wrows * kLanes;  // 8 = narrow, 16 = wide windows
-  const int64_t x_rows = std::max((x_len + kLanes - 1) / kLanes, wrows);
-  const int64_t max_wrow = std::max(x_rows - wrows, (int64_t)0);
-
-  std::vector<Tile> tiles;   // base bins, in plane_start order
-  std::vector<Tile> extras;  // spill tiles, appended after all base bins
-  std::vector<int64_t> plane_start(n_chunks + 1, 0);
-  for (int64_t c = 0; c < n_chunks; ++c)
-    plane_start[c + 1] = plane_start[c] + chunk_lengths[c];
-  tiles.resize(plane_start[n_chunks]);
-  int64_t n_spilled = 0;
-
-  // scratch reused per chunk
-  std::vector<int32_t> assign_buf;  // per-chunk assignments, (r, k) order
-  std::vector<int64_t> W, Wend;
-  struct Spill { int32_t col; double val; int32_t i, j; };
-  std::vector<Spill> spills;
-  std::vector<std::vector<std::pair<int32_t, double>>> rows(kChunkRows);
-
-  for (int64_t c = 0; c < n_chunks; ++c) {
-    const int64_t L = chunk_lengths[c];
-    if (L == 0) continue;
-    const int64_t base = chunk_ptrs[c];
-    // per-row element lists sorted by column (stable)
-    for (int64_t r = 0; r < kChunkRows; ++r) {
-      auto& row = rows[r];
-      row.clear();
-      const int64_t cnt = row_counts_new[c * kChunkRows + r];
-      for (int64_t k = 0; k < cnt; ++k) {
-        const int64_t e = base + k * kChunkRows + r;
-        row.emplace_back(col_idxs[e], values[e]);
-      }
-      std::stable_sort(row.begin(), row.end(),
-                       [](const auto& a, const auto& b) {
-                         return a.first < b.first;
-                       });
-    }
-    // plane windows: min col of each sorted j-plane (non-decreasing)
-    W.assign(L, 0);
-    Wend.assign(L, 0);
-    for (int64_t k = 0; k < L; ++k) {
-      int64_t mc = INT64_MAX;
-      for (int64_t r = 0; r < kChunkRows; ++r)
-        if ((int64_t)rows[r].size() > k)
-          mc = std::min(mc, (int64_t)rows[r][k].first);
-      if (mc == INT64_MAX) mc = 0;
-      const int64_t w = std::min(mc / kLanes, max_wrow);
-      tiles[plane_start[c] + k].chunk = (int32_t)c;
-      tiles[plane_start[c] + k].w = (int32_t)w;
-      W[k] = w * kLanes;
-      Wend[k] = w * kLanes + kWindow;
-    }
-    // per-row two-pointer assignment (needs per-row sequential ptr),
-    // stored in (r, k) order; the conflict check/scatter below then runs
-    // in the Python packer's flat (k, i, j) element order so the S_first
-    // "first wins" tie-break matches exactly
-    spills.clear();
-    assign_buf.clear();
-    for (int64_t r = 0; r < kChunkRows; ++r) {
-      int64_t ptr = 0;
-      for (const auto& kv : rows[r]) {
-        const int64_t col = kv.first;
-        // bmin = first bin with Wend > col; bmax = last bin with W <= col
-        const int64_t bmin =
-            std::upper_bound(Wend.begin(), Wend.end(), col) - Wend.begin();
-        const int64_t bmax =
-            (std::upper_bound(W.begin(), W.end(), col) - W.begin()) - 1;
-        const int64_t b = std::max(ptr, bmin);
-        if (b <= bmax && b < L) {
-          ptr = b + 1;
-          assign_buf.push_back((int32_t)b);
-        } else {
-          assign_buf.push_back(-1);
-        }
-      }
-    }
-    {
-      std::vector<int64_t> row_off(kChunkRows + 1, 0);
-      for (int64_t r = 0; r < kChunkRows; ++r)
-        row_off[r + 1] = row_off[r] + (int64_t)rows[r].size();
-      for (int64_t k = 0; k < L; ++k) {
-        for (int64_t i = 0; i < kTileJ; ++i) {
-          for (int64_t j = 0; j < kLanes; ++j) {
-            const int64_t r = i * kLanes + j;
-            if ((int64_t)rows[r].size() <= k) continue;
-            const int32_t b = assign_buf[row_off[r] + k];
-            const int64_t col = rows[r][k].first;
-            const double val = rows[r][k].second;
-            if (b < 0) {
-              spills.push_back({(int32_t)col, val, (int32_t)i, (int32_t)j});
-              continue;
-            }
-            Tile& t = tiles[plane_start[c] + b];
-            const int64_t off = col - (int64_t)t.w * kLanes;
-            const int32_t l = (int32_t)(off & (kLanes - 1));
-            const int32_t s = (int32_t)(off >> 7);
-            const int64_t skey = i * kLanes + l;
-            if (t.sub_set[skey] && t.sub[skey] != s) {
-              spills.push_back({(int32_t)col, val, (int32_t)i, (int32_t)j});
-              continue;
-            }
-            t.sub[skey] = s;
-            t.sub_set[skey] = 1;
-            t.vals[i * kLanes + j] = val;
-            t.lane[i * kLanes + j] = l;
-            t.occ[i * kLanes + j] = 1;
-            t.used = true;
-          }
-        }
-      }
-    }
-    std::stable_sort(spills.begin(), spills.end(),
-                     [](const Spill& a, const Spill& b) {
-                       return a.col < b.col;
-                     });
-    // spill retry into BASE bins: the two-pointer is a monotone heuristic
-    // (row's k-th element -> bin >= k); any bin of the chunk with a free
-    // slot, covering window and consistent sublane is still legal. Without
-    // this a 7-point stencil leaves ~1 near-empty spill tile per chunk —
-    // 13% of the whole value stream. (Mirrors the Python packer exactly:
-    // spills in (col, flat) order, bins ascending.)
-    {
-      std::vector<Spill> remaining;
-      remaining.reserve(spills.size());
-      for (const Spill& sp : spills) {
-        bool placed = false;
-        for (int64_t b = 0; b < L && !placed; ++b) {
-          Tile& t = tiles[plane_start[c] + b];
-          const int64_t off = (int64_t)sp.col - (int64_t)t.w * kLanes;
-          const int64_t slot = (int64_t)sp.i * kLanes + sp.j;
-          if (off < 0 || off >= kWindow || t.occ[slot]) continue;
-          const int32_t l = (int32_t)(off & (kLanes - 1));
-          const int32_t s = (int32_t)(off >> 7);
-          const int64_t skey = (int64_t)sp.i * kLanes + l;
-          if (t.sub_set[skey] && t.sub[skey] != s) continue;
-          t.vals[slot] = sp.val;
-          t.lane[slot] = l;
-          t.sub[skey] = s;
-          t.sub_set[skey] = 1;
-          t.occ[slot] = 1;
-          t.used = true;
-          placed = true;
-        }
-        if (!placed) remaining.push_back(sp);
-      }
-      spills.swap(remaining);
-    }
-    // greedy spill packing (cols ascending, stable);
-    // n_spilled counts elements in DEDICATED spill tiles (post-retry)
-    n_spilled += (int64_t)spills.size();
-    std::vector<int64_t> open;  // indices into extras, this chunk only
-    for (const Spill& sp : spills) {
-      bool placed = false;
-      for (int64_t ti : open) {
-        Tile& t = extras[ti];
-        const int64_t off = (int64_t)sp.col - (int64_t)t.w * kLanes;
-        const int64_t slot = (int64_t)sp.i * kLanes + sp.j;
-        if (off < 0 || off >= kWindow || t.occ[slot]) continue;
-        const int32_t l = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        const int64_t skey = (int64_t)sp.i * kLanes + l;
-        if (t.sub_set[skey] && t.sub[skey] != s) continue;
-        t.vals[slot] = sp.val;
-        t.lane[slot] = l;
-        t.sub[skey] = s;
-        t.sub_set[skey] = 1;
-        t.occ[slot] = 1;
-        placed = true;
-        break;
-      }
-      if (!placed) {
-        extras.emplace_back();
-        Tile& t = extras.back();
-        t.chunk = (int32_t)c;
-        t.w = (int32_t)std::min((int64_t)sp.col / kLanes, max_wrow);
-        t.used = true;
-        const int64_t off = (int64_t)sp.col - (int64_t)t.w * kLanes;
-        const int32_t l = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        t.vals[(int64_t)sp.i * kLanes + sp.j] = sp.val;
-        t.lane[(int64_t)sp.i * kLanes + sp.j] = l;
-        t.sub[(int64_t)sp.i * kLanes + l] = s;
-        t.sub_set[(int64_t)sp.i * kLanes + l] = 1;
-        t.occ[(int64_t)sp.i * kLanes + sp.j] = 1;
-        open.push_back((int64_t)extras.size() - 1);
-      }
-    }
-  }
-
-  // drop empty base bins, then append extras (python concat order)
-  std::vector<const Tile*> kept;
-  kept.reserve(tiles.size() + extras.size());
-  for (const Tile& t : tiles)
-    if (t.used) kept.push_back(&t);
-  for (const Tile& t : extras) kept.push_back(&t);
-
-  // interleave: stable sort by chunk -> rank within chunk -> key sort by
-  // (group, rank, chunk)
-  const int64_t nk = (int64_t)kept.size();
-  std::vector<int64_t> order0(nk);
-  std::iota(order0.begin(), order0.end(), 0);
-  std::stable_sort(order0.begin(), order0.end(), [&](int64_t a, int64_t b) {
-    return kept[a]->chunk < kept[b]->chunk;
-  });
-  std::vector<int64_t> rank(nk, 0);
-  for (int64_t i = 1; i < nk; ++i)
-    rank[i] = (kept[order0[i]]->chunk == kept[order0[i - 1]]->chunk)
-                  ? rank[i - 1] + 1
-                  : 0;
-  std::vector<int64_t> pos(nk);
-  std::iota(pos.begin(), pos.end(), 0);
-  std::stable_sort(pos.begin(), pos.end(), [&](int64_t a, int64_t b) {
-    const int64_t ga = kept[order0[a]]->chunk / cpg;
-    const int64_t gb = kept[order0[b]]->chunk / cpg;
-    if (ga != gb) return ga < gb;
-    if (rank[a] != rank[b]) return rank[a] < rank[b];
-    return kept[order0[a]]->chunk < kept[order0[b]]->chunk;
-  });
-
-  const int64_t tps = tiles_per_step > 0 ? tiles_per_step : auto_tps(nk);
-  const int64_t n_groups = std::max((n_chunks + cpg - 1) / cpg, (int64_t)1);
-
-  // group padding: emit tiles group-major in interleaved order, each group
-  // padded to a non-zero multiple of tps with zero tiles (chunk = group's
-  // first chunk)
-  auto* h = new PackHandle;
-  h->tps = tps;
-  h->cpg = cpg;
-  h->n_spilled = n_spilled;
-  std::vector<std::vector<int64_t>> per_group(n_groups);
-  for (int64_t i = 0; i < nk; ++i) {
-    const Tile* t = kept[order0[pos[i]]];
-    per_group[t->chunk / cpg].push_back(order0[pos[i]]);
-  }
-  int64_t nt = 0;
-  for (int64_t g = 0; g < n_groups; ++g) {
-    const int64_t cnt = (int64_t)per_group[g].size();
-    nt += std::max((cnt + tps - 1) / tps, (int64_t)1) * tps;
-  }
-  h->nt = nt;
-  h->vals.assign(nt * kChunkRows, 0.0);
-  h->src_tab.assign(nt * kChunkRows, 0);
-  h->w_row.assign(nt, 0);
-  h->tile_chunk.assign(nt, 0);
-  int64_t out = 0;
-  for (int64_t g = 0; g < n_groups; ++g) {
-    const int64_t cnt = (int64_t)per_group[g].size();
-    const int64_t padded = std::max((cnt + tps - 1) / tps, (int64_t)1) * tps;
-    for (int64_t i = 0; i < padded; ++i, ++out) {
-      if (i < cnt) {
-        const Tile* t = kept[per_group[g][i]];
-        std::copy(t->vals.begin(), t->vals.end(),
-                  h->vals.begin() + out * kChunkRows);
-        for (int64_t e = 0; e < kChunkRows; ++e) {
-          // pack (sub << 7) | lane: sub addressed by (i, source lane),
-          // lane addressed by slot — both live on the same 8x128 grid
-          const int64_t ii = e / kLanes;
-          const int64_t jj = e % kLanes;
-          h->src_tab[out * kChunkRows + e] =
-              (t->sub[ii * kLanes + jj] << 7) | t->lane[ii * kLanes + jj];
-        }
-        h->w_row[out] = t->w;
-        h->tile_chunk[out] = t->chunk;
-      } else {
-        h->tile_chunk[out] = (int32_t)(g * cpg);
-      }
-    }
-  }
-  return h;
-}
-
-USPMV_API void uspmv_pack_sizes(const PackHandle* h, int64_t* nt,
-                                int64_t* tps, int64_t* cpg,
-                                int64_t* n_spilled) {
-  *nt = h->nt;
-  *tps = h->tps;
-  *cpg = h->cpg;
-  *n_spilled = h->n_spilled;
-}
-
-USPMV_API void uspmv_pack_fetch(const PackHandle* h, double* vals,
-                                int32_t* src_tab, int32_t* w_row,
-                                int32_t* tile_chunk) {
-  memcpy(vals, h->vals.data(), h->vals.size() * 8);
-  memcpy(src_tab, h->src_tab.data(), h->src_tab.size() * 4);
-  memcpy(w_row, h->w_row.data(), h->w_row.size() * 4);
-  memcpy(tile_chunk, h->tile_chunk.data(), h->tile_chunk.size() * 4);
-}
-
-USPMV_API void uspmv_pack_free(PackHandle* h) { delete h; }
-
-// ---------------------------------------------------------------------------
-// Mixed-chunk tile packer (zero-column-locality mode; see
-// uspmv_tpu/ops/packer.py pack_mixed_tiles — this is the fast twin of the
-// Python greedy, bit-identical tile layout: same element walk order
-// (column-sorted per group, stable on flat SCS order), same head-pruned
-// open-tile scan, same selector/sublane bookkeeping).
-// ---------------------------------------------------------------------------
-
-namespace {
-
-struct MixedTile {
-  int32_t w = 0;
-  int32_t group = 0;
-  int32_t band = 0;  // chunk band; chunk-local ids are band*m + selector
-  std::vector<double> vals;    // 8*128 by slot
-  std::vector<int32_t> lane;   // by slot
-  std::vector<int32_t> sel;    // by slot
-  std::vector<int32_t> sub;    // by source lane (i*128 + l)
-  std::vector<uint8_t> s_set;  // by source lane
-  std::vector<uint8_t> occ;    // by slot
-  MixedTile()
-      : vals(kChunkRows, 0.0), lane(kChunkRows, 0), sel(kChunkRows, 0),
-        sub(kChunkRows, 0), s_set(kChunkRows, 0), occ(kChunkRows, 0) {}
-};
-
-struct MixedHandle {
-  int64_t nt = 0;
-  int64_t m = 8;
-  std::vector<double> vals;     // [nt, 8, 128]
-  std::vector<int32_t> src_tab; // [nt, 8, 128]
-  std::vector<int32_t> w_row;   // [nt]
-  std::vector<int32_t> grp;     // [nt]
-  std::vector<int32_t> cls;     // [nt, m]
-};
-
-}  // namespace
-
-USPMV_API MixedHandle* uspmv_pack_mixed_tiles(
-    int64_t n_chunks, int64_t n_rows_padded, const int32_t* chunk_ptrs,
-    const int32_t* chunk_lengths, const int32_t* col_idxs,
-    const double* values, const int32_t* row_counts_new, int64_t x_len,
-    int64_t chunks_per_group, int64_t window_rows, int64_t m_mixed) {
-  (void)n_rows_padded;
-  const int64_t G = chunks_per_group > 0 ? chunks_per_group : kChunksPerGroup;
-  const int64_t wrows = window_rows > 0 ? window_rows : 32;
-  const int64_t kWindow = wrows * kLanes;
-  const int64_t x_rows = std::max((x_len + kLanes - 1) / kLanes, wrows);
-  const int64_t max_wrow = std::max(x_rows - wrows, (int64_t)0);
-  const int64_t m = m_mixed > 0 ? std::min<int64_t>(m_mixed, 8) : 8;
-  const int64_t n_groups = std::max((n_chunks + G - 1) / G, (int64_t)1);
-
-  // BANDED selectors (mirrors the Python packer): chunk band = cl / m,
-  // selector = cl % m; a tile serves one band, its chunk-local ids are
-  // band*m + q — no per-tile chunk-set bookkeeping
-  struct Elem {
-    int32_t col;
-    int32_t band;
-    int32_t sel;
-    int16_t i, j;
-    double val;
-  };
-  std::vector<Elem> elems;
-  std::vector<MixedTile> tiles;
-
-  auto* h = new MixedHandle();
-  h->m = m;
-
-  for (int64_t g = 0; g < n_groups; ++g) {
-    elems.clear();
-    const int64_t c0 = g * G, c1 = std::min(n_chunks, (g + 1) * G);
-    for (int64_t c = c0; c < c1; ++c) {
-      const int64_t L = chunk_lengths[c];
-      const int64_t base = chunk_ptrs[c];
-      const int32_t cl = (int32_t)(c - c0);
-      for (int64_t k = 0; k < L; ++k)
-        for (int64_t r = 0; r < kChunkRows; ++r) {
-          if (row_counts_new[c * kChunkRows + r] <= k) continue;  // padding
-          const int64_t e = base + k * kChunkRows + r;
-          elems.push_back(Elem{col_idxs[e], (int32_t)(cl / m),
-                               (int32_t)(cl % m),
-                               (int16_t)(r >> 7), (int16_t)(r & (kLanes - 1)),
-                               values[e]});
-        }
-    }
-    // stable sort by (band, column); ties keep flat SCS order, matching
-    // the Python packer's np.lexsort((cols, band, group))
-    std::stable_sort(elems.begin(), elems.end(),
-                     [](const Elem& a, const Elem& b) {
-                       if (a.band != b.band) return a.band < b.band;
-                       return a.col < b.col;
-                     });
-    int64_t open_head = (int64_t)tiles.size();
-    int32_t cur_band = -1;
-    for (const Elem& el : elems) {
-      const int64_t col = el.col;
-      const int64_t slot = (int64_t)el.i * kLanes + el.j;
-      if (el.band != cur_band) {
-        cur_band = el.band;
-        open_head = (int64_t)tiles.size();  // bands never share tiles
-      }
-      while (open_head < (int64_t)tiles.size() &&
-             (int64_t)tiles[open_head].w * kLanes + kWindow <= col)
-        ++open_head;
-      bool placed = false;
-      for (int64_t tix = open_head; tix < (int64_t)tiles.size(); ++tix) {
-        MixedTile& t = tiles[tix];
-        const int64_t off = col - (int64_t)t.w * kLanes;
-        if (off >= kWindow || t.occ[slot]) continue;
-        const int32_t lane = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        const int64_t lslot = (int64_t)el.i * kLanes + lane;
-        if (t.s_set[lslot] && t.sub[lslot] != s) continue;
-        t.vals[slot] = el.val;
-        t.lane[slot] = lane;
-        t.sel[slot] = el.sel;
-        t.sub[lslot] = s;
-        t.s_set[lslot] = 1;
-        t.occ[slot] = 1;
-        placed = true;
-        break;
-      }
-      if (!placed) {
-        tiles.emplace_back();
-        MixedTile& t = tiles.back();
-        t.w = (int32_t)std::min(col / kLanes, max_wrow);
-        t.group = (int32_t)g;
-        t.band = el.band;
-        const int64_t off = col - (int64_t)t.w * kLanes;
-        const int32_t lane = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        t.vals[slot] = el.val;
-        t.lane[slot] = lane;
-        t.sel[slot] = el.sel;
-        t.sub[(int64_t)el.i * kLanes + lane] = s;
-        t.s_set[(int64_t)el.i * kLanes + lane] = 1;
-        t.occ[slot] = 1;
-      }
-    }
-  }
-
-  const int64_t nt = std::max((int64_t)tiles.size(), (int64_t)1);
-  h->nt = nt;
-  h->vals.assign(nt * kChunkRows, 0.0);
-  h->src_tab.assign(nt * kChunkRows, 0);
-  h->w_row.assign(nt, 0);
-  h->grp.assign(nt, 0);
-  h->cls.assign(nt * m, 0);
-  for (int64_t k = 0; k < (int64_t)tiles.size(); ++k) {
-    const MixedTile& t = tiles[k];
-    std::copy(t.vals.begin(), t.vals.end(), h->vals.begin() + k * kChunkRows);
-    for (int64_t e = 0; e < kChunkRows; ++e)
-      h->src_tab[k * kChunkRows + e] =
-          (t.sel[e] << 13) | (t.sub[e] << 7) | t.lane[e];
-    h->w_row[k] = t.w;
-    h->grp[k] = t.group;
-    for (int32_t q = 0; q < m; ++q)
-      h->cls[k * m + q] =
-          (int32_t)std::min((int64_t)t.band * m + q, G - 1);
-  }
-  return h;
-}
-
-USPMV_API void uspmv_mixed_sizes(const MixedHandle* h, int64_t* nt,
-                                 int64_t* m) {
-  *nt = h->nt;
-  *m = h->m;
-}
-
-USPMV_API void uspmv_mixed_fetch(const MixedHandle* h, double* vals,
-                                 int32_t* src_tab, int32_t* w_row,
-                                 int32_t* grp, int32_t* cls) {
-  memcpy(vals, h->vals.data(), h->vals.size() * 8);
-  memcpy(src_tab, h->src_tab.data(), h->src_tab.size() * 4);
-  memcpy(w_row, h->w_row.data(), h->w_row.size() * 4);
-  memcpy(grp, h->grp.data(), h->grp.size() * 4);
-  memcpy(cls, h->cls.data(), h->cls.size() * 4);
-}
-
-USPMV_API void uspmv_mixed_free(MixedHandle* h) { delete h; }
-
-// ---------------------------------------------------------------------------
-// Product-tile packer (phase 1 of the transpose-stream mode; see
-// uspmv_tpu/ops/packer.py pack_product_tiles — bit-identical fast twin).
-// ---------------------------------------------------------------------------
-
-namespace {
-
-struct ProductHandle {
-  int64_t nt = 0;
-  int64_t NB = 0;
-  int64_t NCg = 0;
-  int64_t s_pad = 0;
-  int64_t n_packed = 0;
-  int64_t n_spill = 0;
-  std::vector<double> vals;      // [nt, 8, 128]
-  std::vector<int32_t> src_tab;  // [nt, 8, 128]
-  std::vector<int32_t> w_row;    // [nt]
-  std::vector<int64_t> elem_rows;
-  std::vector<int64_t> elem_pos;
-  std::vector<int64_t> spill_rows;
-  std::vector<int64_t> spill_cols;
-  std::vector<double> spill_vals;
-};
-
-}  // namespace
-
-// values may arrive as f64 or f32 (vals_f32 flag): the padded value
-// array is ~100-400x nnz for the tstream intermediate, and casting it
-// to f64 on the Python side cost ~26 s at 200k rows (ABI v6).
-namespace {
-struct PElem {
-  int64_t cell;
-  int32_t col;
-  int64_t row;
-  double val;
-  int32_t k;  // in-row occurrence index (element-order tiebreak)
-};
-
-// Greedy cell-major product-tile packing shared by the padded and the
-// COMPACT entry points. Elements must arrive with a valid (row, col, k);
-// the traversal order is (cell asc, k asc, row asc) — identical to the
-// padded layout's flat enumeration, so both entries (and the Python
-// twin) place elements bit-identically.
-ProductHandle* pack_product_core(std::vector<PElem>& elems,
-                                 int64_t n_chunks, double s_cap_factor) {
-  const int64_t kWrows = 32;  // PRODUCT_WINDOW_ROWS
-  const int64_t W = kWrows * kLanes;
-  int64_t n_cols = 1;
-  for (const auto& e : elems)
-    if (e.col + 1 > n_cols) n_cols = e.col + 1;
-  const int64_t NB = (n_cols + W - 1) / W;
-  const int64_t NCg = (n_chunks + 127) / 128;
-  for (auto& e : elems) e.cell = (e.col / W) * n_chunks + e.row / kChunkRows;
-  std::stable_sort(elems.begin(), elems.end(),
-                   [](const PElem& a, const PElem& b) {
-                     return a.cell != b.cell ? a.cell < b.cell : a.k < b.k;
-                   });
-
-  // cell sizes -> padded capacity (mirror the Python formula)
-  std::vector<int64_t> csize(NB * n_chunks, 0);
-  for (const auto& e : elems) ++csize[e.cell];
-  int64_t cmax = 1;
-  double csum = 0;
-  for (int64_t v : csize) {
-    cmax = std::max(cmax, v);
-    csum += (double)v;
-  }
-  const double lam = std::max(csum / (double)csize.size(), 1.0);
-  int64_t s_cap = std::min<int64_t>(std::max<int64_t>(cmax, 8),
-                                    (int64_t)std::max(s_cap_factor * lam, 16.0));
-  const int64_t s_pad = ((s_cap + 7) / 8) * 8;
-  const int64_t s8 = s_pad / 8;
-
-  const int64_t nt = NB * NCg * s8;
-  auto* h = new ProductHandle();
-  h->nt = nt;
-  h->NB = NB;
-  h->NCg = NCg;
-  h->s_pad = s_pad;
-  h->vals.assign(nt * kChunkRows, 0.0);
-  std::vector<int32_t> lane_tab(nt * kChunkRows, 0);
-  std::vector<int32_t> sub_tab(nt * kChunkRows, 0);
-  std::vector<uint8_t> s_set(nt * kChunkRows, 0);
-  h->w_row.assign(nt, 0);
-  for (int64_t t = 0; t < nt; ++t)
-    h->w_row[t] = (int32_t)((t / (NCg * s8)) * kWrows);
-
-  h->elem_rows.reserve(elems.size());
-  h->elem_pos.reserve(elems.size());
-  int64_t ei = 0;
-  const int64_t n_el = (int64_t)elems.size();
-  while (ei < n_el) {
-    const int64_t ci = elems[ei].cell;
-    const int64_t b = ci / n_chunks;
-    const int64_t c = ci % n_chunks;
-    const int64_t g2 = c / 128;
-    const int64_t j = c % 128;
-    const int64_t tile0 = (b * NCg + g2) * s8;
-    const int64_t pos0 = (c * NB + b) * s_pad;
-    std::vector<uint8_t> used_k(s_pad, 0);
-    for (; ei < n_el && elems[ei].cell == ci; ++ei) {
-      const PElem& el = elems[ei];
-      const int32_t l_e = el.col & (kLanes - 1);
-      const int32_t s_e = (int32_t)((el.col - b * W) >> 7);
-      bool placed = false;
-      // first-fit from 0 (see the Python twin): a forward-only pointer
-      // strands pin-skipped slots and spills elements they could take
-      for (int64_t k = 0; k < s_pad; ++k) {
-        if (used_k[k]) continue;
-        const int64_t t = tile0 + (k >> 3);
-        const int64_t a = k & 7;
-        const int64_t pin = t * kChunkRows + a * kLanes + l_e;
-        if (!s_set[pin] || sub_tab[pin] == s_e) {
-          h->vals[t * kChunkRows + a * kLanes + j] = el.val;
-          lane_tab[t * kChunkRows + a * kLanes + j] = l_e;
-          sub_tab[pin] = s_e;
-          s_set[pin] = 1;
-          used_k[k] = 1;
-          h->elem_rows.push_back(el.row);
-          h->elem_pos.push_back(pos0 + k);
-          placed = true;
-          break;
-        }
-      }
-      if (!placed) {
-        h->spill_rows.push_back(el.row);
-        h->spill_cols.push_back(el.col);
-        h->spill_vals.push_back(el.val);
-      }
-    }
-  }
-  h->n_packed = (int64_t)h->elem_rows.size();
-  h->n_spill = (int64_t)h->spill_rows.size();
-  h->src_tab.assign(nt * kChunkRows, 0);
-  for (int64_t e = 0; e < nt * kChunkRows; ++e)
-    h->src_tab[e] = (sub_tab[e] << 7) | lane_tab[e];
-  return h;
-}
-}  // namespace
-
-USPMV_API ProductHandle* uspmv_pack_product_tiles(
-    int64_t n_chunks, int64_t n_rows_padded, const int32_t* chunk_ptrs,
-    const int32_t* chunk_lengths, const int32_t* col_idxs,
-    const void* values_p, int32_t vals_f32, const int32_t* row_counts_new,
-    double s_cap_factor) {
-  (void)n_rows_padded;
-  const double* vals_d = static_cast<const double*>(values_p);
-  const float* vals_s = static_cast<const float*>(values_p);
-  auto VAL = [&](int64_t e) -> double {
-    return vals_f32 ? (double)vals_s[e] : vals_d[e];
-  };
-  std::vector<PElem> elems;
-  for (int64_t c = 0; c < n_chunks; ++c) {
-    const int64_t L = chunk_lengths[c];
-    const int64_t base = chunk_ptrs[c];
-    for (int64_t k = 0; k < L; ++k)
-      for (int64_t r = 0; r < kChunkRows; ++r) {
-        if (row_counts_new[c * kChunkRows + r] <= k) continue;
-        const int64_t e = base + k * kChunkRows + r;
-        elems.push_back(
-            PElem{0, col_idxs[e], c * kChunkRows + r, VAL(e), (int32_t)k});
-      }
-  }
-  return pack_product_core(elems, n_chunks, s_cap_factor);
-}
-
-// COMPACT entry: per-permuted-row CSR (row_ptrs into cols/values) — the
-// padded SCS extent is never materialized (it reaches ~120x nnz under
-// the tstream balance permutation on pareto rows; building and copying
-// it cost ~560 s of a 644 s operator build at 500k rows).
-USPMV_API ProductHandle* uspmv_pack_product_tiles_compact(
-    int64_t n_chunks, int64_t n_rows_padded, const int32_t* row_counts_new,
-    const int64_t* row_ptrs, const int32_t* cols, const void* values_p,
-    int32_t vals_f32, double s_cap_factor) {
-  const double* vals_d = static_cast<const double*>(values_p);
-  const float* vals_s = static_cast<const float*>(values_p);
-  std::vector<PElem> elems;
-  elems.reserve((size_t)row_ptrs[n_rows_padded]);
-  for (int64_t r = 0; r < n_rows_padded; ++r) {
-    const int64_t base = row_ptrs[r];
-    const int64_t cnt = row_counts_new[r];
-    for (int64_t k = 0; k < cnt; ++k) {
-      const int64_t e = base + k;
-      const double v = vals_f32 ? (double)vals_s[e] : vals_d[e];
-      elems.push_back(PElem{0, cols[e], r, v, (int32_t)k});
-    }
-  }
-  return pack_product_core(elems, n_chunks, s_cap_factor);
-}
-
-USPMV_API void uspmv_product_sizes(const ProductHandle* h, int64_t* nt,
-                                   int64_t* NB, int64_t* NCg,
-                                   int64_t* s_pad, int64_t* n_packed,
-                                   int64_t* n_spill) {
-  *nt = h->nt;
-  *NB = h->NB;
-  *NCg = h->NCg;
-  *s_pad = h->s_pad;
-  *n_packed = h->n_packed;
-  *n_spill = h->n_spill;
-}
-
-USPMV_API void uspmv_product_fetch(const ProductHandle* h, double* vals,
-                                   int32_t* src_tab, int32_t* w_row,
-                                   int64_t* elem_rows, int64_t* elem_pos,
-                                   int64_t* spill_rows, int64_t* spill_cols,
-                                   double* spill_vals) {
-  memcpy(vals, h->vals.data(), h->vals.size() * 8);
-  memcpy(src_tab, h->src_tab.data(), h->src_tab.size() * 4);
-  memcpy(w_row, h->w_row.data(), h->w_row.size() * 4);
-  memcpy(elem_rows, h->elem_rows.data(), h->elem_rows.size() * 8);
-  memcpy(elem_pos, h->elem_pos.data(), h->elem_pos.size() * 8);
-  if (h->n_spill) {
-    memcpy(spill_rows, h->spill_rows.data(), h->spill_rows.size() * 8);
-    memcpy(spill_cols, h->spill_cols.data(), h->spill_cols.size() * 8);
-    memcpy(spill_vals, h->spill_vals.data(), h->spill_vals.size() * 8);
-  }
-}
-
-USPMV_API void uspmv_product_free(ProductHandle* h) { delete h; }
-
-// ---------------------------------------------------------------------------
-namespace { inline int64_t lslot0(int64_t i, int64_t lane) { return i * kLanes + lane; } }
-
-// Column-walk packer (per-chunk column-sorted sliding greedy into standard
-// lane tiles; see uspmv_tpu/ops/packer.py pack_lane_tiles_colwalk — fast
-// bit-identical twin; Python applies the shared ordering/padding tail).
-// ---------------------------------------------------------------------------
-
-USPMV_API MixedHandle* uspmv_pack_colwalk(
-    int64_t n_chunks, int64_t n_rows_padded, const int32_t* chunk_ptrs,
-    const int32_t* chunk_lengths, const int32_t* col_idxs,
-    const double* values, const int32_t* row_counts_new, int64_t x_len,
-    int64_t window_rows) {
-  (void)n_rows_padded;
-  const int64_t wrows = window_rows > 0 ? window_rows : 32;
-  const int64_t kWindow = wrows * kLanes;
-  const int64_t x_rows = std::max((x_len + kLanes - 1) / kLanes, wrows);
-  const int64_t max_wrow = std::max(x_rows - wrows, (int64_t)0);
-
-  struct Elem {
-    int32_t col;
-    int16_t i, j;
-    double val;
-  };
-  std::vector<Elem> elems;
-  std::vector<MixedTile> tiles;
-
-  auto* h = new MixedHandle();
-  h->m = 1;
-
-  for (int64_t c = 0; c < n_chunks; ++c) {
-    elems.clear();
-    const int64_t L = chunk_lengths[c];
-    const int64_t base = chunk_ptrs[c];
-    for (int64_t k = 0; k < L; ++k)
-      for (int64_t r = 0; r < kChunkRows; ++r) {
-        if (row_counts_new[c * kChunkRows + r] <= k) continue;
-        const int64_t e = base + k * kChunkRows + r;
-        elems.push_back(Elem{col_idxs[e], (int16_t)(r >> 7),
-                             (int16_t)(r & (kLanes - 1)), values[e]});
-      }
-    std::stable_sort(elems.begin(), elems.end(),
-                     [](const Elem& a, const Elem& b) { return a.col < b.col; });
-    int64_t open_head = (int64_t)tiles.size();
-    for (const Elem& el : elems) {
-      const int64_t col = el.col;
-      const int64_t slot = (int64_t)el.i * kLanes + el.j;
-      while (open_head < (int64_t)tiles.size() &&
-             (int64_t)tiles[open_head].w * kLanes + kWindow <= col)
-        ++open_head;
-      bool placed = false;
-      for (int64_t tix = open_head; tix < (int64_t)tiles.size(); ++tix) {
-        MixedTile& t = tiles[tix];
-        const int64_t off = col - (int64_t)t.w * kLanes;
-        if (off >= kWindow || t.occ[slot]) continue;
-        const int32_t lane = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        const int64_t lslot = (int64_t)el.i * kLanes + lane;
-        if (t.s_set[lslot] && t.sub[lslot] != s) continue;
-        t.vals[slot] = el.val;
-        t.lane[slot] = lane;
-        t.sub[lslot] = s;
-        t.s_set[lslot] = 1;
-        t.occ[slot] = 1;
-        placed = true;
-        break;
-      }
-      if (!placed) {
-        tiles.emplace_back();
-        MixedTile& t = tiles.back();
-        t.w = (int32_t)std::min(col / kLanes, max_wrow);
-        t.group = (int32_t)c;  // chunk id rides the group field
-        const int64_t off = col - (int64_t)t.w * kLanes;
-        const int32_t lane = (int32_t)(off & (kLanes - 1));
-        const int32_t s = (int32_t)(off >> 7);
-        t.vals[slot] = el.val;
-        t.lane[slot] = lane;
-        t.sub[lslot0(el.i, lane)] = s;
-        t.s_set[lslot0(el.i, lane)] = 1;
-        t.occ[slot] = 1;
-      }
-    }
-  }
-
-  const int64_t nt = std::max((int64_t)tiles.size(), (int64_t)1);
-  h->nt = nt;
-  h->vals.assign(nt * kChunkRows, 0.0);
-  h->src_tab.assign(nt * kChunkRows, 0);
-  h->w_row.assign(nt, 0);
-  h->grp.assign(nt, 0);
-  h->cls.assign(nt, 0);
-  for (int64_t k = 0; k < (int64_t)tiles.size(); ++k) {
-    const MixedTile& t = tiles[k];
-    std::copy(t.vals.begin(), t.vals.end(), h->vals.begin() + k * kChunkRows);
-    for (int64_t e = 0; e < kChunkRows; ++e)
-      h->src_tab[k * kChunkRows + e] = (t.sub[e] << 7) | t.lane[e];
-    h->w_row[k] = t.w;
-    h->grp[k] = t.group;  // = tile_chunk
-  }
-  return h;
-}

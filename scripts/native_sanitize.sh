@@ -2,8 +2,8 @@
 # Sanitizer pass over the native host library (reference Makefile:229-236
 # ships ASAN/UBSAN build targets; its scripts then run the binary under
 # them). Here: build the sanitized .so variants and drive them through the
-# native test corpus (tests/test_native.py exercises the reader, converter
-# and packer against their Python twins).
+# native test corpus (tests/test_native.py exercises the reader and the
+# converter against their Python twins).
 #
 # Usage: scripts/native_sanitize.sh [asan|ubsan|all]
 set -euo pipefail
@@ -28,7 +28,7 @@ run_asan() {
   echo "== ASAN pass =="
   # leak detection off: the long-lived python interpreter holds plenty of
   # intentional allocations; we are after heap-buffer overflows/UAF in the
-  # native reader/converter/packer
+  # native reader/converter
   USPMV_NATIVE_LIB=libuspmv_host_asan.so \
   LD_PRELOAD="$libasan" ASAN_OPTIONS=detect_leaks=0:halt_on_error=1 \
     python -m pytest tests/test_native.py -q

@@ -328,7 +328,7 @@ def test_scamac_option_errors_propagate():
 
 def test_cg_example_converges():
     """The embedding example (examples/cg_solver.py) converges on the
-    lane-tile SpMV closure — the 'embed SpMV in your own solver' use case
+    operator's SpMV closure — the 'embed SpMV in your own solver' use case
     of the reference's interface.hpp."""
     import importlib.util
     import os
@@ -345,7 +345,7 @@ def test_cg_example_converges():
     from uspmv_tpu.io.generators import laplace2d
 
     mtx = laplace2d(24)
-    h = ui.prepare(mtx, C=1024, sigma=1, value_type="sp", backend="cpu")
+    h = ui.prepare(mtx, C=32, sigma=1, value_type="sp", backend="cpu")
     rng = np.random.default_rng(1)
     x_true = rng.standard_normal(mtx.n_rows)
     b = mtx.to_scipy().tocsr() @ x_true

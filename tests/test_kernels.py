@@ -22,7 +22,7 @@ from conftest import matrix_path
 
 def make_operator(name, **kw) -> tuple:
     mtx = read_mtx(matrix_path(name))
-    cfg = Config(use_pallas=False, **kw)
+    cfg = Config(**kw)
     return mtx, SpmvOperator.from_mtx(cfg, mtx)
 
 
@@ -195,7 +195,6 @@ def test_dropout_changes_result():
         ap_threshold_1=1e3,
         dropout=True,
         dropout_threshold=1e-2,
-        use_pallas=False,
     )
     op = SpmvOperator.from_mtx(cfg, mtx)
     assert op.n_dropped > 0
@@ -222,7 +221,7 @@ def test_scs_explosion_guard_falls_back_to_crs():
     assert counts.max() > 1000  # genuinely heavy-tailed
     cfg = Config(
         kernel_format="scs", chunk_size=1024, sigma=1, value_type="sp",
-        use_pallas=True, backend="cpu", split_rows_threshold=-1,
+        backend="cpu", split_rows_threshold=-1,
     )
     with warnings.catch_warnings(record=True) as w:
         warnings.simplefilter("always")
@@ -236,23 +235,22 @@ def test_scs_explosion_guard_falls_back_to_crs():
     assert np.abs(y - ref).max() / np.abs(ref).max() < 2e-5
 
 
-def test_heavy_row_splitting_lane_tiles():
-    """With splitting on (the default), power-law matrices stay on the
-    lane-tile path at healthy fill instead of degrading to CRS."""
+def test_heavy_row_splitting_bounds_padding():
+    """With splitting on (the default), power-law rows split into virtual
+    rows whose partials fold back into their parents after every SpMV:
+    padding stays bounded at C=32 and results match scipy through spmv
+    and the solve-mode scan."""
     from uspmv_tpu.io.generators import random_imbalanced
-    from uspmv_tpu.ops.pallas_scs import DeviceLaneTiles
 
     mtx = random_imbalanced(60_000, 12, alpha=1.1, seed=13)
     cfg = Config(
-        kernel_format="scs", chunk_size=1024, sigma=1, value_type="sp",
-        use_pallas=True, backend="cpu",
+        kernel_format="scs", chunk_size=32, sigma=1, value_type="sp",
+        backend="cpu",
     )
     op = SpmvOperator.from_mtx(cfg, mtx)
     assert op.split_plan is not None
-    assert isinstance(op.devs["sp"], DeviceLaneTiles)
     prim = next(iter(op.scs.values()))
-    # bounded padding (unsplit this matrix pads ~500x; sigma sorting
-    # tightens it further)
+    # bounded padding (unsplit, one 4k-nnz row pads its whole chunk)
     assert prim.n_elements < 8 * mtx.nnz
     x = np.random.default_rng(0).standard_normal(mtx.n_rows)
     y = op.to_host(op.spmv(op.make_x(x)))
@@ -293,7 +291,7 @@ def test_split_heavy_rows_unit():
 def test_banded_imbalanced_generator_and_sigma():
     """BandedImbalanced: power-law rows inside a diagonal band — the regime
     where sigma-sorting + heavy-row splitting interact. Correctness at both
-    sigma extremes on the lane-tile path."""
+    sigma extremes at C=32."""
     from uspmv_tpu.io.generators import banded_imbalanced
 
     mtx = banded_imbalanced(30_000, bandwidth=300, avg_nnz_per_row=8, seed=5)
@@ -303,9 +301,27 @@ def test_banded_imbalanced_generator_and_sigma():
     ref = mtx.to_scipy().tocsr() @ x
     for sigma in (1, 4096):
         cfg = Config(
-            kernel_format="scs", chunk_size=1024, sigma=sigma,
-            value_type="sp", use_pallas=True, backend="cpu",
+            kernel_format="scs", chunk_size=32, sigma=sigma,
+            value_type="sp", backend="cpu",
         )
         op = SpmvOperator.from_mtx(cfg, mtx)
         y = op.to_host(op.spmv(op.make_x(x)))
         assert np.abs(y - ref).max() / np.abs(ref).max() < 2e-4
+
+
+def test_gpu_request_never_runs_on_the_cpu():
+    """backend='gpu' in a process without a GPU raises; the operator never
+    carries on on another platform."""
+    import jax
+
+    from uspmv_tpu.io.generators import laplace2d
+
+    try:
+        jax.devices("gpu")
+        pytest.skip("this process has a GPU")
+    except RuntimeError:
+        pass
+    with pytest.raises(RuntimeError):
+        SpmvOperator.from_mtx(Config(backend="gpu", value_type="sp"),
+                              laplace2d(8))
+

@@ -1,9 +1,6 @@
 """MatrixMarket ingest tests — validated against scipy.io as oracle
 (the reference validates against its vendored NIST mmio; SURVEY.md §2 #2-3)."""
 
-import glob
-import os
-
 import numpy as np
 import pytest
 import scipy.io
@@ -12,11 +9,9 @@ import scipy.sparse as sp
 from uspmv_tpu.io.mmio import read_mtx, write_mtx
 from uspmv_tpu.formats.coo import MtxData
 
-from conftest import MATRICES_DIR, matrix_path
+from conftest import MATRICES, matrix_path
 
-ALL_MATRICES = sorted(
-    os.path.basename(p) for p in glob.glob(os.path.join(MATRICES_DIR, "*.mtx"))
-)
+ALL_MATRICES = sorted(MATRICES)
 
 
 @pytest.mark.parametrize("name", ALL_MATRICES)
@@ -35,11 +30,9 @@ def test_read_matches_scipy(name):
     with open(path) as f:
         banner = f.readline()
     if "integer" in banner:
-        # matrix1int.mtx declares 'integer' but contains float values;
-        # scipy truncates those, while the reference reads everything as
-        # double (mm_read_unsymmetric_sparse<double>, fscanf %lg) — our
-        # reader matches the reference, so only compare structure here.
-        assert (abs(got - ref) > 0).sum() >= 0
+        # the reference reads integer files as double too
+        # (mm_read_unsymmetric_sparse<double>, fscanf %lg); ours matches
+        assert abs(got - ref).max() == 0.0
     else:
         assert abs(got - ref).max() == 0.0
 

@@ -151,95 +151,42 @@ def test_roundtrip_write_native_read(tmp_path):
     np.testing.assert_array_equal(nat.values, py.values)
 
 
-# ----------------------------------------------------------- lane-tile pack
+# --------------------------------------------- generated matrices, C = 32
 
 
-def _assert_tiles_equal(a, b):
-    assert a.n_tiles == b.n_tiles
-    assert a.tiles_per_step == b.tiles_per_step
-    assert a.chunks_per_group == b.chunks_per_group
-    assert a.n_spilled == b.n_spilled
-    np.testing.assert_array_equal(a.tile_chunk, b.tile_chunk)
-    np.testing.assert_array_equal(a.w_row, b.w_row)
-    np.testing.assert_array_equal(a.src_tab, b.src_tab)
-    np.testing.assert_array_equal(a.vals, b.vals)
+def _generated(gen):
+    from uspmv_tpu.io.generators import (
+        banded_imbalanced, laplace3d, powerlaw_cols,
+    )
 
-
-@pytest.mark.parametrize("gen", ["laplace", "banded", "imbalanced"])
-def test_pack_lane_tiles_parity(gen):
-    from uspmv_tpu.formats.scs import permute_scs_cols
-    from uspmv_tpu.io.generators import laplace3d, random_banded, random_imbalanced
-    from uspmv_tpu.ops.packer import CHUNK_ROWS, pack_lane_tiles
-
-    mtx = {
+    return {
         "laplace": lambda: laplace3d(12),
-        "banded": lambda: random_banded(2300, 70, 9, seed=31),
-        "imbalanced": lambda: random_imbalanced(1700, 7, seed=32),
+        "banded": lambda: banded_imbalanced(3000, bandwidth=40, seed=3),
+        "powerlaw": lambda: powerlaw_cols(3000, 8, seed=4),
     }[gen]()
-    scs = convert_to_scs(mtx.astype(np.float32), CHUNK_ROWS, 1)
-    fp = np.arange(scs.n_rows_padded, dtype=np.int32)
-    fp[: scs.n_rows] = scs.old_to_new_idx
-    permute_scs_cols(scs, fp)
-    py = pack_lane_tiles(scs, native=False)
-    nat = pack_lane_tiles(scs, native=True)
-    _assert_tiles_equal(py, nat)
 
 
-@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
-def test_pack_lane_tiles_parity_low_and_high_precision(dtype):
-    """Native tile values travel as f64 and round ONCE to the target dtype;
-    bf16 must be bit-identical to the Python packer even on round-to-even
-    edge cases (values exactly between two bf16 grid points would double-
-    round differently via an f32 intermediate)."""
-    import jax.numpy as jnp
-
-    from uspmv_tpu.io.generators import laplace2d
-    from uspmv_tpu.ops.packer import CHUNK_ROWS, pack_lane_tiles
-
-    dt = jnp.bfloat16 if dtype == "bfloat16" else np.float64
-    mtx = laplace2d(40)
-    # plant values on bf16 rounding ties: 1 + (2k+1) * 2^-9 sits exactly
-    # between adjacent bf16 mantissa steps (bf16 has 7 mantissa bits)
-    rng = np.random.default_rng(5)
-    ties = 1.0 + (2 * rng.integers(0, 64, mtx.nnz) + 1) * 2.0**-9
-    mtx.values[:] = ties * np.sign(mtx.values)
-    scs = convert_to_scs(mtx, CHUNK_ROWS, 1)
-    py = pack_lane_tiles(scs, dtype=dt, native=False)
-    nat = pack_lane_tiles(scs, dtype=dt, native=True)
-    assert nat.vals.dtype == py.vals.dtype
-    np.testing.assert_array_equal(
-        py.vals.view(np.uint16 if dtype == "bfloat16" else np.uint64),
-        nat.vals.view(np.uint16 if dtype == "bfloat16" else np.uint64),
+@pytest.mark.parametrize("sigma", [1, 128])
+@pytest.mark.parametrize("gen", ["laplace", "banded", "powerlaw"])
+def test_convert_parity_generated(gen, sigma):
+    """The GPU kernel's chunk height (C = 32) on the generated matrix
+    classes the benchmark uses: native and Python agree bit-exactly."""
+    mtx = _generated(gen)
+    _assert_scs_equal(
+        convert_to_scs(mtx, 32, sigma, native=False),
+        convert_to_scs(mtx, 32, sigma, native=True),
     )
 
 
-def test_pack_lane_tiles_parity_halo_xlen():
-    """Distributed builds pack with a halo-extended x_len."""
-    from uspmv_tpu.io.generators import laplace2d
-    from uspmv_tpu.ops.packer import CHUNK_ROWS, pack_lane_tiles
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_convert_parity_value_dtypes(dtype):
+    """Low-precision value streams (the native f32 fetch casts during the
+    copy) match the Python converter's cast."""
+    from uspmv_tpu.config import dtype_for
 
-    mtx = laplace2d(40)
-    scs = convert_to_scs(mtx.astype(np.float32), CHUNK_ROWS, 1)
-    x_len = scs.n_rows_padded + 333
-    py = pack_lane_tiles(scs, x_len=x_len, native=False)
-    nat = pack_lane_tiles(scs, x_len=x_len, native=True)
-    _assert_tiles_equal(py, nat)
-
-
-def test_pack_lane_tiles_native_speed():
-    """The native packer must beat Python by a wide margin on a real-sized
-    matrix (host preprocessing is production-path)."""
-    import time
-
-    from uspmv_tpu.io.generators import laplace3d
-    from uspmv_tpu.ops.packer import CHUNK_ROWS, pack_lane_tiles
-
-    mtx = laplace3d(32)
-    scs = convert_to_scs(mtx.astype(np.float32), CHUNK_ROWS, 1)
-    t0 = time.perf_counter()
-    pack_lane_tiles(scs, native=True)
-    t_nat = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    pack_lane_tiles(scs, native=False)
-    t_py = time.perf_counter() - t0
-    assert t_nat < t_py
+    dt = dtype_for("hp") if dtype == "bfloat16" else np.dtype(dtype)
+    mtx = _generated("banded").astype(dt)
+    py = convert_to_scs(mtx, 32, 64, native=False)
+    nat = convert_to_scs(mtx, 32, 64, native=True)
+    assert py.values.dtype == nat.values.dtype == dt
+    _assert_scs_equal(py, nat)

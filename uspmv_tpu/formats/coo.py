@@ -1,6 +1,6 @@
 """COO matrix container and host-side preprocessing.
 
-TPU-native re-design of the reference's ``MtxData`` (classes_structs.hpp:
+Re-design of the reference's ``MtxData`` (classes_structs.hpp:
 1169-1238) plus the permutation/scaling helpers from utilities.hpp. All
 host-side; arrays are numpy (int32 indices, like the reference's IT=int).
 """
@@ -188,105 +188,6 @@ def split_heavy_rows(
         values=mtx.values.copy(),
     ).sort_by_row()
     return out, parent
-
-
-FOLD_BLOCK = 1024  # virtual-row alignment block for the prefix-sum fold
-
-
-def align_split_rows(
-    mtx: MtxData, n_real: int, parent: np.ndarray, base: int = -1
-) -> Tuple[MtxData, np.ndarray, np.ndarray, int, np.ndarray]:
-    """Re-number the virtual rows of a split matrix so the per-parent fold
-    can run VECTORIZED instead of as a TPU scatter (XLA lowers scatters to
-    ~9 ns/index serial loops; at 100k+ virtual rows that costs more than
-    the SpMV itself).
-
-    Layout invariants established (all relative to the virtual region,
-    which starts at row ``base`` — default ``n_real``; the distributed
-    path passes a COMMON base so one shard_map program can slice every
-    shard's region at the same offset):
-      * each parent's virtual rows stay CONSECUTIVE and parent-ascending;
-      * a parent's run never straddles a FOLD_BLOCK boundary;
-      * offset 0 of every block is a reserved dead row (no elements);
-      * the region length is padded to a multiple of FOLD_BLOCK.
-
-    With those, block-local inclusive prefix sums cs of the virtual
-    partials (one (nb,1024)x(1024,1024) triangular matmul on the MXU) turn
-    the fold into per-real-row differences ``cs[e_p] - cs[s_p]`` — i.e. an
-    SpMV by a ±1 matrix with <= 2 nnz/row, which the lane-tile kernel runs
-    at full fill. Rows without pieces get e = s = 0 (difference 0).
-
-    Returns (mtx', e_idx[n_real], s_idx[n_real], region_len, virt_ids,
-    parent') — e/s are REGION-RELATIVE indices; virt_ids are the new
-    absolute row ids of the (still parent-ascending) virtual rows and
-    parent' their parents, for the scatter-fold fallback.
-    """
-    if not mtx.is_sorted:
-        raise ValueError("align_split_rows requires row-sorted input")
-    parent = np.asarray(parent)
-    if base < 0:
-        base = n_real
-    assert base >= n_real, "virtual region cannot overlap real rows"
-    n_virtual = mtx.n_rows - n_real
-    assert parent.shape[0] == n_virtual
-    # run lengths per parent (parent is ascending by construction)
-    uniq, run_start = np.unique(parent, return_index=True)
-    run_len = np.diff(np.append(run_start, n_virtual))
-    if run_len.max(initial=0) >= FOLD_BLOCK:
-        raise ValueError(
-            "a parent has >= FOLD_BLOCK virtual rows; raise the split "
-            "threshold"
-        )
-    # allocate runs: skip the reserved slot at every block start, bump to
-    # the next block when a run would straddle. Batched per BLOCK (a
-    # searchsorted finds how many whole runs fit the remaining capacity),
-    # which packs identically to the sequential first-fit cursor but in
-    # O(n_blocks log n) instead of a Python loop over every run.
-    starts = np.empty(uniq.size, dtype=np.int64)
-    B = FOLD_BLOCK
-    cum = np.concatenate(([0], np.cumsum(run_len)))
-    i0 = 0
-    blk = 0
-    n_runs = uniq.size
-    while i0 < n_runs:
-        j = int(np.searchsorted(cum, cum[i0] + (B - 1), side="right")) - 1
-        j = max(j, i0 + 1)  # every run fits alone (run_len < B enforced)
-        starts[i0:j] = blk * B + 1 + (cum[i0:j] - cum[i0])
-        blk += 1
-        i0 = j
-    region_len = blk * B
-
-    # old virtual id (dense, parent-ascending) -> new region position
-    new_pos = np.repeat(starts, run_len) + (
-        np.arange(n_virtual) - np.repeat(run_start, run_len)
-    )
-    remap = np.arange(n_real + n_virtual, dtype=np.int64)
-    remap[n_real:] = base + new_pos
-    new_I = remap[mtx.I]
-
-    e_idx = np.zeros(n_real, dtype=np.int32)
-    s_idx = np.zeros(n_real, dtype=np.int32)
-    e_idx[uniq] = (starts + run_len - 1).astype(np.int32)
-    s_idx[uniq] = (starts - 1).astype(np.int32)
-
-    parent2 = parent  # order preserved (runs move as units, still ascending)
-    out = MtxData(
-        n_rows=base + region_len,
-        n_cols=mtx.n_cols,
-        nnz=mtx.nnz,
-        is_sorted=False,
-        is_symmetric=False,
-        I=new_I.astype(np.int32),
-        J=mtx.J.copy(),
-        values=mtx.values.copy(),
-    ).sort_by_row()
-    virt_ids = (base + new_pos).astype(np.int64)
-    return out, e_idx, s_idx, int(region_len), virt_ids, parent2
-
-
-# ---------------------------------------------------------------------------
-# Permutation helpers (reference utilities.hpp:1755-1831)
-# ---------------------------------------------------------------------------
 
 
 def generate_inv_perm(perm: np.ndarray) -> np.ndarray:

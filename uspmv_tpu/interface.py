@@ -16,7 +16,7 @@ Mapping to the reference exports (interface.hpp):
 
 Example:
     import uspmv_tpu.interface as ui
-    h = ui.prepare(mtx, C=1024, sigma=1, value_type="sp")
+    h = ui.prepare(mtx, C=32, sigma=1, value_type="sp")
     y = ui.execute_uspmv(h, x)          # numpy in, numpy out
     y = ui.execute_uspmv(h, x, n_repetitions=50)   # repeated-SpMV solve
 
@@ -49,7 +49,6 @@ def prepare(
     block_vec_size: int = 1,
     vector_layout: str = "rowwise",
     backend: str = "auto",
-    use_pallas: bool = True,
     ap_threshold_1: float = 0.0,
     ap_threshold_2: float = 0.0,
     equilibrate: bool = False,
@@ -77,7 +76,6 @@ def prepare(
         block_vec_size=block_vec_size,
         vector_layout=vector_layout,
         backend=backend,
-        use_pallas=use_pallas,
         ap_threshold_1=ap_threshold_1,
         ap_threshold_2=ap_threshold_2,
         equilibrate=equilibrate,

@@ -1,6 +1,6 @@
 """Scalable synthetic matrix generators.
 
-TPU-native stand-in for the reference's ScaMaC generator bridge
+Stand-in for the reference's ScaMaC generator bridge
 (scamac_generate, utilities.hpp:1585-1752): instead of linking the ScaMaC
 library we provide deterministic, scalable generators for the same job —
 producing arbitrarily large test/bench matrices without files. Selected by

@@ -44,7 +44,7 @@ def _try_build() -> bool:
         # serialize concurrent builds across PROCESSES (multi-host runs
         # spawn several importing processes; two concurrent makes racing on
         # libuspmv_host.so can nondeterministically break dlopen/the ABI
-        # check and silently drop a process to the slow Python packer)
+        # check and silently drop a process to the slow Python converter)
         import fcntl
 
         lockpath = os.path.join(_NATIVE_SRC_DIR, ".build.lock")
@@ -65,7 +65,7 @@ def _try_build() -> bool:
         return False
 
 
-_ABI_VERSION = 7  # must match uspmv_abi_version() in native/uspmv_host.cpp
+_ABI_VERSION = 8  # must match uspmv_abi_version() in native/uspmv_host.cpp
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -95,46 +95,6 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.uspmv_scs_fetch_vals_f32.argtypes = [ctypes.c_void_p, _f32p]
     lib.uspmv_scs_free.argtypes = [ctypes.c_void_p]
-    lib.uspmv_pack_lane_tiles.restype = ctypes.c_void_p
-    lib.uspmv_pack_lane_tiles.argtypes = [
-        _i64, _i64, _i32p, _i32p, _i32p, _f64p, _i32p, _i64, _i64, _i64,
-        _i64,
-    ]
-    lib.uspmv_pack_sizes.argtypes = [ctypes.c_void_p, _i64p, _i64p, _i64p, _i64p]
-    lib.uspmv_pack_fetch.argtypes = [ctypes.c_void_p, _f64p, _i32p, _i32p, _i32p]
-    lib.uspmv_pack_free.argtypes = [ctypes.c_void_p]
-    lib.uspmv_pack_mixed_tiles.restype = ctypes.c_void_p
-    lib.uspmv_pack_mixed_tiles.argtypes = [
-        _i64, _i64, _i32p, _i32p, _i32p, _f64p, _i32p, _i64, _i64, _i64,
-        _i64,
-    ]
-    lib.uspmv_mixed_sizes.argtypes = [ctypes.c_void_p, _i64p, _i64p]
-    lib.uspmv_mixed_fetch.argtypes = [
-        ctypes.c_void_p, _f64p, _i32p, _i32p, _i32p, _i32p,
-    ]
-    lib.uspmv_mixed_free.argtypes = [ctypes.c_void_p]
-    lib.uspmv_pack_colwalk.restype = ctypes.c_void_p
-    lib.uspmv_pack_colwalk.argtypes = [
-        _i64, _i64, _i32p, _i32p, _i32p, _f64p, _i32p, _i64, _i64,
-    ]
-    lib.uspmv_pack_product_tiles.restype = ctypes.c_void_p
-    lib.uspmv_pack_product_tiles.argtypes = [
-        _i64, _i64, _i32p, _i32p, _i32p, ctypes.c_void_p, ctypes.c_int32,
-        _i32p, ctypes.c_double,
-    ]
-    lib.uspmv_pack_product_tiles_compact.restype = ctypes.c_void_p
-    lib.uspmv_pack_product_tiles_compact.argtypes = [
-        _i64, _i64, _i32p, _i64p, _i32p, ctypes.c_void_p, ctypes.c_int32,
-        ctypes.c_double,
-    ]
-    lib.uspmv_product_sizes.argtypes = [
-        ctypes.c_void_p, _i64p, _i64p, _i64p, _i64p, _i64p, _i64p,
-    ]
-    lib.uspmv_product_fetch.argtypes = [
-        ctypes.c_void_p, _f64p, _i32p, _i32p, _i64p, _i64p, _i64p, _i64p,
-        _f64p,
-    ]
-    lib.uspmv_product_free.argtypes = [ctypes.c_void_p]
     return lib
 
 
@@ -259,10 +219,9 @@ def convert_to_scs_native(mtx, C: int, sigma: int, dtype=None,
         col_idxs = np.empty(n_elems.value, dtype=np.int32)
         out_dtype = np.dtype(dtype if dtype is not None
                              else mtx.values.dtype)
-        # the padded value array can be ~100-400x nnz; for f32 targets
+        # the padded value array can be many times nnz; for f32 targets
         # cast DURING the copy (uspmv_scs_fetch_vals_f32) instead of
         # fetching a second full-size f64 buffer and astype-ing it
-        # (measured ~40% of a 500k-row tstream build)
         f32_fast = out_dtype == np.float32
         values = np.empty(
             n_elems.value, dtype=np.float32 if f32_fast else np.float64
@@ -297,287 +256,4 @@ def convert_to_scs_native(mtx, C: int, sigma: int, dtype=None,
         new_to_old_idx=new_to_old,
         n_cols=mtx.n_cols,
         row_counts_new=row_counts,
-    )
-
-
-def pack_colwalk_native(scs, dtype, tiles_per_step=None,
-                        chunks_per_group=None, x_len=None, window_rows=32):
-    """Native column-walk greedy -> ops.packer.LaneTiles (bit-identical to
-    the Python twin; the shared finalize runs in Python)."""
-    lib = load()
-    if lib is None or not hasattr(lib, "uspmv_pack_colwalk"):
-        return None
-    dtype = np.dtype(dtype)
-    from ..ops.packer import (
-        CHUNK_ROWS,
-        LANES,
-        TILE_J,
-        _finalize_colwalk,
-    )
-
-    if scs.C != CHUNK_ROWS:
-        raise ValueError("colwalk packing requires C=1024")
-    if scs.row_counts_new is None:
-        return None
-    if x_len is None:
-        x_len = scs.n_rows_padded
-    cp = np.ascontiguousarray(scs.chunk_ptrs, dtype=np.int32)
-    cl = np.ascontiguousarray(scs.chunk_lengths, dtype=np.int32)
-    ci = np.ascontiguousarray(scs.col_idxs, dtype=np.int32)
-    vals = np.ascontiguousarray(scs.values, dtype=np.float64)
-    rc = np.ascontiguousarray(scs.row_counts_new, dtype=np.int32)
-    h = lib.uspmv_pack_colwalk(
-        scs.n_chunks, scs.n_rows_padded, _ptr_i32(cp), _ptr_i32(cl),
-        _ptr_i32(ci), vals.ctypes.data_as(_f64p), _ptr_i32(rc),
-        int(x_len), int(window_rows),
-    )
-    if not h:
-        _raise_last(lib)
-    try:
-        nt = _i64(0)
-        m = _i64(0)
-        lib.uspmv_mixed_sizes(h, ctypes.byref(nt), ctypes.byref(m))
-        tvals = np.empty((nt.value, TILE_J, LANES), dtype=np.float64)
-        src = np.empty((nt.value, TILE_J, LANES), dtype=np.int32)
-        w_row = np.empty(nt.value, dtype=np.int32)
-        tchunk = np.empty(nt.value, dtype=np.int32)
-        cls = np.empty((nt.value, max(m.value, 1)), dtype=np.int32)
-        lib.uspmv_mixed_fetch(
-            h, tvals.ctypes.data_as(_f64p), _ptr_i32(src), _ptr_i32(w_row),
-            _ptr_i32(tchunk), _ptr_i32(cls),
-        )
-    finally:
-        lib.uspmv_mixed_free(h)
-    return _finalize_colwalk(
-        tvals.astype(dtype) if dtype != np.float64 else tvals,
-        src, w_row.astype(np.int64), tchunk.astype(np.int32), scs,
-        tiles_per_step, chunks_per_group, int(window_rows),
-    )
-
-
-def pack_product_tiles_native(scs, dtype, s_cap_factor=4.0):
-    """Native phase-1 product-tile greedy -> ops.packer.ProductTiles
-    (bit-identical to the Python reference twin); None if unavailable."""
-    lib = load()
-    if lib is None or not hasattr(lib, "uspmv_pack_product_tiles"):
-        return None
-    dtype = np.dtype(dtype)
-    from ..ops.packer import CHUNK_ROWS, LANES, TILE_J, ProductTiles
-
-    if scs.C != CHUNK_ROWS:
-        raise ValueError("product tiles require C=1024")
-    if scs.row_counts_new is None:
-        return None
-    vf32 = scs.values.dtype == np.float32
-    vals = np.ascontiguousarray(
-        scs.values, dtype=np.float32 if vf32 else np.float64
-    )
-    rc = np.ascontiguousarray(scs.row_counts_new, dtype=np.int32)
-    if hasattr(scs, "row_ptrs"):
-        # CompactScs: per-row CSR, padded extent never materialized
-        rp = np.ascontiguousarray(scs.row_ptrs, dtype=np.int64)
-        ci = np.ascontiguousarray(scs.cols, dtype=np.int32)
-        h = lib.uspmv_pack_product_tiles_compact(
-            scs.n_chunks, scs.n_rows_padded, _ptr_i32(rc),
-            rp.ctypes.data_as(_i64p), _ptr_i32(ci),
-            vals.ctypes.data_as(ctypes.c_void_p),
-            ctypes.c_int32(1 if vf32 else 0), float(s_cap_factor),
-        )
-    else:
-        cp = np.ascontiguousarray(scs.chunk_ptrs, dtype=np.int32)
-        cl = np.ascontiguousarray(scs.chunk_lengths, dtype=np.int32)
-        ci = np.ascontiguousarray(scs.col_idxs, dtype=np.int32)
-        # the padded value array is ~100-400x nnz for the tstream
-        # intermediate: pass f32 through and cast element-wise in C++
-        # instead of materializing a second full-size f64 copy
-        h = lib.uspmv_pack_product_tiles(
-            scs.n_chunks, scs.n_rows_padded, _ptr_i32(cp), _ptr_i32(cl),
-            _ptr_i32(ci), vals.ctypes.data_as(ctypes.c_void_p),
-            ctypes.c_int32(1 if vf32 else 0), _ptr_i32(rc),
-            float(s_cap_factor),
-        )
-    if not h:
-        _raise_last(lib)
-    try:
-        nt = _i64(0)
-        NB = _i64(0)
-        NCg = _i64(0)
-        s_pad = _i64(0)
-        n_packed = _i64(0)
-        n_spill = _i64(0)
-        lib.uspmv_product_sizes(
-            h, ctypes.byref(nt), ctypes.byref(NB), ctypes.byref(NCg),
-            ctypes.byref(s_pad), ctypes.byref(n_packed),
-            ctypes.byref(n_spill),
-        )
-        tvals = np.empty((nt.value, TILE_J, LANES), dtype=np.float64)
-        src = np.empty((nt.value, TILE_J, LANES), dtype=np.int32)
-        w_row = np.empty(nt.value, dtype=np.int32)
-        erows = np.empty(n_packed.value, dtype=np.int64)
-        epos = np.empty(n_packed.value, dtype=np.int64)
-        srows = np.empty(max(n_spill.value, 1), dtype=np.int64)
-        scols = np.empty(max(n_spill.value, 1), dtype=np.int64)
-        svals = np.empty(max(n_spill.value, 1), dtype=np.float64)
-        lib.uspmv_product_fetch(
-            h, tvals.ctypes.data_as(_f64p), _ptr_i32(src), _ptr_i32(w_row),
-            erows.ctypes.data_as(_i64p), epos.ctypes.data_as(_i64p),
-            srows.ctypes.data_as(_i64p), scols.ctypes.data_as(_i64p),
-            svals.ctypes.data_as(_f64p),
-        )
-    finally:
-        lib.uspmv_product_free(h)
-    ns = n_spill.value
-    return ProductTiles(
-        vals=tvals.astype(dtype) if dtype != np.float64 else tvals,
-        src_tab=src,
-        w_row=w_row,
-        NB=int(NB.value),
-        NCg=int(NCg.value),
-        s_pad=int(s_pad.value),
-        n_chunks=scs.n_chunks,
-        nnz_packed=int(n_packed.value),
-        elem_rows=erows,
-        elem_pos=epos,
-        spill_rows=srows[:ns],
-        spill_cols=scols[:ns],
-        spill_vals=svals[:ns],
-    )
-
-
-def pack_mixed_tiles_native(scs, dtype, tiles_per_step=None,
-                            chunks_per_group=None, x_len=None,
-                            window_rows=32, m_mixed=8):
-    """Native mixed-chunk tile greedy -> ops.packer.MixedTiles (the Python
-    packer in ops/packer.py is the bit-identical reference twin); returns
-    None when the library is unavailable. The shared finalize (interleave +
-    per-group step padding) runs in Python for both."""
-    lib = load()
-    if lib is None or not hasattr(lib, "uspmv_pack_mixed_tiles"):
-        return None
-    dtype = np.dtype(dtype)
-    from ..ops.packer import (
-        CHUNK_ROWS,
-        LANES,
-        TILE_J,
-        _finalize_mixed_tiles,
-        resolve_chunks_per_group,
-    )
-
-    if scs.C != CHUNK_ROWS:
-        raise ValueError(
-            f"mixed-tile packing requires C={CHUNK_ROWS}, got C={scs.C}"
-        )
-    if scs.row_counts_new is None:
-        return None
-    if x_len is None:
-        x_len = scs.n_rows_padded
-    if chunks_per_group is None:
-        chunks_per_group = resolve_chunks_per_group(scs.n_chunks)
-    cp = np.ascontiguousarray(scs.chunk_ptrs, dtype=np.int32)
-    cl = np.ascontiguousarray(scs.chunk_lengths, dtype=np.int32)
-    ci = np.ascontiguousarray(scs.col_idxs, dtype=np.int32)
-    vals = np.ascontiguousarray(scs.values, dtype=np.float64)
-    rc = np.ascontiguousarray(scs.row_counts_new, dtype=np.int32)
-    h = lib.uspmv_pack_mixed_tiles(
-        scs.n_chunks, scs.n_rows_padded, _ptr_i32(cp), _ptr_i32(cl),
-        _ptr_i32(ci), vals.ctypes.data_as(_f64p), _ptr_i32(rc),
-        int(x_len), int(chunks_per_group), int(window_rows), int(m_mixed),
-    )
-    if not h:
-        _raise_last(lib)
-    try:
-        nt = _i64(0)
-        m = _i64(0)
-        lib.uspmv_mixed_sizes(h, ctypes.byref(nt), ctypes.byref(m))
-        tvals = np.empty((nt.value, TILE_J, LANES), dtype=np.float64)
-        src = np.empty((nt.value, TILE_J, LANES), dtype=np.int32)
-        w_row = np.empty(nt.value, dtype=np.int32)
-        grp = np.empty(nt.value, dtype=np.int32)
-        cls = np.empty((nt.value, m.value), dtype=np.int32)
-        lib.uspmv_mixed_fetch(
-            h, tvals.ctypes.data_as(_f64p), _ptr_i32(src), _ptr_i32(w_row),
-            _ptr_i32(grp), _ptr_i32(cls),
-        )
-    finally:
-        lib.uspmv_mixed_free(h)
-    n_groups = max(
-        (scs.n_chunks + chunks_per_group - 1) // chunks_per_group, 1
-    )
-    return _finalize_mixed_tiles(
-        tvals.astype(dtype) if dtype != np.float64 else tvals,
-        src, w_row, grp, cls, scs, dtype,
-        tiles_per_step, int(chunks_per_group), n_groups,
-        int(window_rows), int(m.value),
-    )
-
-
-def pack_lane_tiles_native(scs, dtype, tiles_per_step=None,
-                           chunks_per_group=None, x_len=None,
-                           window_rows=8):
-    """Native lane-tile packing -> ops.packer.LaneTiles, or None if the lib
-    is unavailable. Tile values travel as f64 through the library and are
-    rounded ONCE to the target dtype here — bit-identical to the Python
-    packer for every dtype (f32, bf16, f64 alike)."""
-    lib = load()
-    if lib is None:
-        return None
-    dtype = np.dtype(dtype)
-    from ..ops.packer import CHUNK_ROWS, LANES, TILE_J, LaneTiles
-
-    if scs.C != CHUNK_ROWS:
-        raise ValueError(
-            f"lane-tile packing requires C={CHUNK_ROWS}, got C={scs.C}"
-        )
-    if scs.row_counts_new is None:
-        return None
-    if x_len is None:
-        x_len = scs.n_rows_padded
-    if chunks_per_group is None:
-        from ..ops.packer import resolve_chunks_per_group
-
-        chunks_per_group = resolve_chunks_per_group(scs.n_chunks)
-    cp = np.ascontiguousarray(scs.chunk_ptrs, dtype=np.int32)
-    cl = np.ascontiguousarray(scs.chunk_lengths, dtype=np.int32)
-    ci = np.ascontiguousarray(scs.col_idxs, dtype=np.int32)
-    vals = np.ascontiguousarray(scs.values, dtype=np.float64)
-    rc = np.ascontiguousarray(scs.row_counts_new, dtype=np.int32)
-    h = lib.uspmv_pack_lane_tiles(
-        scs.n_chunks, scs.n_rows_padded, _ptr_i32(cp), _ptr_i32(cl),
-        _ptr_i32(ci), vals.ctypes.data_as(_f64p), _ptr_i32(rc),
-        int(x_len), int(tiles_per_step or 0), int(chunks_per_group or 0),
-        int(window_rows),
-    )
-    if not h:
-        _raise_last(lib)
-    try:
-        nt = _i64(0)
-        tps = _i64(0)
-        cpg = _i64(0)
-        nsp = _i64(0)
-        lib.uspmv_pack_sizes(
-            h, ctypes.byref(nt), ctypes.byref(tps), ctypes.byref(cpg),
-            ctypes.byref(nsp),
-        )
-        tvals = np.empty((nt.value, TILE_J, LANES), dtype=np.float64)
-        src = np.empty((nt.value, TILE_J, LANES), dtype=np.int32)
-        w_row = np.empty(nt.value, dtype=np.int32)
-        tchunk = np.empty(nt.value, dtype=np.int32)
-        lib.uspmv_pack_fetch(
-            h, tvals.ctypes.data_as(_f64p),
-            _ptr_i32(src), _ptr_i32(w_row), _ptr_i32(tchunk),
-        )
-    finally:
-        lib.uspmv_pack_free(h)
-    return LaneTiles(
-        vals=tvals.astype(dtype) if dtype != np.float64 else tvals,
-        src_tab=src,
-        w_row=w_row,
-        tile_chunk=tchunk,
-        n_chunks=scs.n_chunks,
-        n_rows_padded=scs.n_rows_padded,
-        nnz=scs.nnz,
-        n_spilled=int(nsp.value),
-        tiles_per_step=int(tps.value),
-        chunks_per_group=int(cpg.value),
-        window_rows=int(window_rows),
     )

@@ -2,17 +2,17 @@
 
 The reference cross-checks its kernels against a vendor library it did not
 write — cuSPARSE CSR and SlicedEll descriptors (utilities.hpp:3380-3550,
-invoked via cusparseSpMV at classes_structs.hpp:998-1011). The TPU-native
-analogue of "an implementation the framework authors didn't write" is the
-sparse support shipped with JAX itself: BCOO matrices lowered by XLA's
-own sparse rules. Select with ``-impl bcoo``; the bench block then reports
-a number produced by JAX's kernels rather than ours, against the identical
-flops/bytes accounting.
+invoked via cusparseSpMV at classes_structs.hpp:998-1011). Here that is the
+sparse support shipped with JAX itself: BCOO matrices, which on a GPU lower
+to cuSPARSE (``jax_bcoo_cusparse_lowering``, switched on when the operator
+is built for a GPU) and elsewhere to XLA's own sparse rules. Select with
+``-impl bcoo``; the bench block then reports a number produced by library
+kernels rather than ours, against the identical flops/bytes accounting.
 
 Deliberately minimal: no SCS conversion, no row permutation, no halo
 machinery — x and y stay in natural order. This keeps the path independent
 (nothing from our format pipeline can leak into it) and makes it the
-honest external baseline for the lane-tile kernel's speedup claims.
+honest external baseline for the SELL-C-sigma kernel's speedup claims.
 """
 
 from __future__ import annotations
@@ -85,7 +85,8 @@ class BcooSpmvOperator:
             mtx = mtx.sort_by_row()
         stats = extract_matrix_min_mean_max(mtx)
         device = resolve_device(config)
-        dt = np.dtype(config.working_dtype())
+        if device.platform == "gpu":
+            jax.config.update("jax_bcoo_cusparse_lowering", True)
         indices = np.stack(
             [mtx.I.astype(np.int32), mtx.J.astype(np.int32)], axis=1
         )
@@ -96,7 +97,6 @@ class BcooSpmvOperator:
             indices_sorted=True,
             unique_indices=False,
         )
-        del dt
         return cls(
             config=config,
             n_rows=mtx.n_rows,
@@ -118,6 +118,8 @@ class BcooSpmvOperator:
         return self.devs
 
     def build_spmv_closure(self):
+        from jax.experimental import sparse
+
         layout = self.config.vector_layout
         bs = self.config.block_vec_size
         acc = jnp.dtype(self.working_dtype)
@@ -133,7 +135,12 @@ class BcooSpmvOperator:
             # accumulation does not (ADVICE r2)
             if mat.data.dtype.itemsize < jnp.dtype(acc).itemsize:
                 mat = mat.astype(acc)
-            return (mat @ x.astype(mat.data.dtype)).astype(acc)
+            y = sparse.bcoo_dot_general(
+                mat, x.astype(mat.data.dtype),
+                dimension_numbers=(([1], [0]), ([], [])),
+                precision=jax.lax.Precision.HIGHEST,
+            )
+            return y.astype(acc)
 
         if bs > 1 and layout == "colwise":
             return lambda devs, x: jax.vmap(lambda xv: one(devs, xv))(x)

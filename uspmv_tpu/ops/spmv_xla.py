@@ -1,10 +1,10 @@
 """Pure-XLA SpMV / SpMMV kernels.
 
-These are the portable compute paths (CPU tests + TPU fallback); the Pallas
-kernels in pallas_scs.py implement the same contracts fused on-chip. They
-re-design the reference's kernel layer (kernels.hpp:22-551,
-ap_kernels.hpp:21-634) for XLA: the OpenMP chunk loop becomes whole-array
-gather/segment ops that XLA tiles onto the VPU.
+These are the portable compute paths (the CPU, and ``-impl xla`` on a
+GPU); the Triton kernel in spmv_triton.py implements the same contract in
+one pass over the SELL-C-sigma stream. They re-design the reference's
+kernel layer (kernels.hpp:22-551, ap_kernels.hpp:21-634) for XLA: the
+OpenMP chunk loop becomes whole-array gather/segment ops.
 
 Contracts (all take *permuted, padded* x and produce *permuted, padded* y):
 
@@ -30,7 +30,7 @@ from .device_format import DeviceScs
 
 
 def _acc_dtype(x_dtype):
-    """Accumulation dtype: bf16 inputs accumulate in f32 (TPU-native),
+    """Accumulation dtype: bf16 inputs accumulate in f32,
     f32/f64 accumulate in themselves (reference accumulates in double)."""
     if x_dtype == jnp.bfloat16:
         return jnp.float32

@@ -7,9 +7,10 @@ midpoint, or deterministic uniform randoms in [matrix_min, matrix_max].
 
 Layouts (reference Makefile:17-31):
   rowwise : x[row, vec]  — shape [n_pad, bs]; the block dim is minor
-            (lane-friendly on TPU; the bulk/block kernels consume this)
+            (the block kernels consume this: one matrix stream for all
+            columns)
   colwise : x[vec, row]  — shape [bs, n_pad]; each vector contiguous
-            (maps to per-vector kernel sweeps, vmapped on device)
+            (runs transposed through the rowwise kernels)
 Single vectors (bs=1) are plain [n_pad].
 """
 

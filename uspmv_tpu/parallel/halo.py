@@ -29,7 +29,7 @@ are invariant to this ordering.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List
 
 import numpy as np
 
@@ -50,10 +50,6 @@ class HaloPlan:
     recv_counts: np.ndarray  # [R, R] recv_counts[r, o] = elems r needs from o
     # per-shard padded send-count per offset (real, for comm-volume report)
     real_counts: Dict[int, np.ndarray]
-    # per-shard ascending GLOBAL columns living in the halo region (the
-    # order they occupy [n_rows_padded_r, n_rows_padded_r + halo_r));
-    # callers use it to locate extra_cols (e.g. hub-peel x positions)
-    halo_cols: Optional[List[np.ndarray]] = None
 
     @property
     def comm_volume_per_spmv(self) -> int:
@@ -74,21 +70,13 @@ def build_halo_plan(
     scs_list: List[ScsData],
     work_sharing: np.ndarray,
     renumber: bool = True,
-    extra_cols: Optional[List[np.ndarray]] = None,
 ) -> HaloPlan:
     """Analyze per-shard SCS structs whose col_idxs are GLOBAL, build the
     exchange plan, and (if ``renumber``) rewrite col_idxs in place to the
     local layout: [0, n_rows_padded) = own permuted rows,
     [n_rows_padded, n_rows_padded + halo) = halo in ascending-global-col
     order. Structural padding elements are pointed at local slot 0
-    (their values are zero).
-
-    ``extra_cols`` (per shard, GLOBAL column ids) are folded into the
-    needed-set even though the SCS no longer references them — used by
-    the hub-column peel, whose hub term gathers x positions that the
-    residual matrix alone would not fetch. Their positions are
-    recoverable from ``HaloPlan.halo_cols`` (remote) or the shard's own
-    permutation (local)."""
+    (their values are zero)."""
     R = len(scs_list)
     ws = np.asarray(work_sharing, dtype=np.int64)
     assert ws.shape[0] == R + 1
@@ -105,12 +93,7 @@ def build_halo_plan(
         cols = scs.col_idxs.astype(np.int64)
         local = (cols >= lo) & (cols < hi) & ~pad
         remote = ~pad & ~local
-        rem_cols = cols[remote]
-        if extra_cols is not None and extra_cols[r] is not None:
-            ex = np.asarray(extra_cols[r], dtype=np.int64)
-            ex = ex[(ex < lo) | (ex >= hi)]
-            rem_cols = np.concatenate([rem_cols, ex])
-        urc = np.unique(rem_cols)
+        urc = np.unique(cols[remote])
         urcs.append(urc)
         halo_counts.append(int(urc.size))
         owners = np.searchsorted(ws, urc, side="right") - 1
@@ -180,7 +163,6 @@ def build_halo_plan(
         recv_scatter_idx=recv_scatter_idx,
         recv_counts=recv_counts,
         real_counts=real_counts,
-        halo_cols=urcs,
     )
 
 

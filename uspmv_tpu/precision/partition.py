@@ -20,7 +20,7 @@ parsed but never applied there (declared, unimplemented; SURVEY.md §2 #9).
 Here dropout=True drops elements with |a| < dropout_threshold (after
 equilibration scaling when enabled) before bucketing, and reports the count.
 
-On TPU, "hp" is bfloat16 (the reference uses _Float16 via HAVE_HALF_MATH).
+Here "hp" is bfloat16 (the reference uses _Float16 via HAVE_HALF_MATH).
 """
 
 from __future__ import annotations

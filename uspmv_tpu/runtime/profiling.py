@@ -3,7 +3,7 @@
 The reference brackets each kernel variant in LIKWID marker regions
 (register_likwid_markers, utilities.hpp:2686-2770; markers inside kernels
 e.g. kernels.hpp:41-61) and measures bandwidth externally with
-likwid-perfctr. The TPU equivalents:
+likwid-perfctr. The JAX equivalents:
 
   * named regions -> jax.profiler.TraceAnnotation / StepTraceAnnotation,
     visible in a captured XLA trace;

@@ -33,7 +33,8 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
         f"format: {res.kernel_format} C={res.C} sigma={res.sigma} "
         f"value_type={res.value_type} block_vec_size={res.block_vec_size} "
         f"layout={cfg.vector_layout}",
-        f"platform: {res.platform}  impl: {res.impl or '?'}  "
+        f"platform: {res.platform} ({res.device_kind})  "
+        f"impl: {res.impl or '?'}  "
         f"n_rows: {res.n_rows}  nnz: {res.nnz}",
         f"n_iterations: {res.n_iterations}  kernel_time: "
         f"{res.duration_kernel_s:.4f} s"
@@ -53,17 +54,10 @@ def format_bench_block(cfg: Config, res: BenchResult) -> str:
             f"  [{p}] nnz={res.nnz_per_precision[p]} ({pct:.1f}%) "
             f"beta={res.beta[p]:.4f} device_beta={res.device_beta[p]:.4f}"
         )
-    if res.retiled:
-        lines.append(
-            f"note: logical C={res.C} sigma={res.sigma} re-tiled into "
-            "physical 1024-row lane-tile chunks (row order and beta above "
-            "are the logical format's; -no_retile executes the literal "
-            "layout)"
-        )
     if res.comm_volume_elems:
         lines.append(f"comm volume: {res.comm_volume_elems} halo elems/SpMV")
     if res.n_processes > 1 and res.comm_volume_per_host:
-        # pod-slice runs: per-host received halo elements (DCN proxy)
+        # multi-process runs: per-process received halo elements
         for p, hosts in res.comm_volume_per_host.items():
             per = "  ".join(
                 f"host{h}={v}" for h, v in sorted(hosts.items())
